@@ -3,7 +3,7 @@
 // include/ba_interface_example/BAOptimizer.h:127-135: BAOptimizer_Create /
 // Add_CamVertex / Add_XYZVertex / Add_P2C3DEdge / Optimize / Dump_State...).
 //
-// The TPU build's optimizer lives in Python/JAX, so the C shim embeds the
+// This build's optimizer lives in Python/JAX, so the C shim embeds the
 // CPython interpreter and drives slam_plus_plus_tpu.app.ba_optimizer —
 // a C or C++ host links libspp_ba_c.so and never sees Python.  Build:
 //   make -C native libspp_ba_c.so

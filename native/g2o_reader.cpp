@@ -2,7 +2,7 @@
 //
 // Native host-path component: the reference's parser is C++
 // (reference include/slam/Parser.h:1138 CParserTemplate + per-token parse
-// primitives in include/slam_app/ParsePrimitives.h); this is its TPU-build
+// primitives in include/slam_app/ParsePrimitives.h); this is this build's
 // equivalent.  Reads the full token registry in one pass and buckets records
 // into per-token columnar arrays (int ids + double payloads) that the Python
 // binding turns into GraphSystem stores wholesale — the per-line float

@@ -11,7 +11,7 @@
 // propagation through the levels (the same math as
 // linalg/incremental_cholesky.py's fused scan, executed as scalar C++
 // loops — the XLA per-op dispatch tax inside the scans is what this
-// engine removes on CPU; the TPU keeps the scan engine).
+// engine removes on CPU; the GPU keeps the scan engine).
 //
 // Scope: SE(2) pose graphs and 2D landmark (range-bearing) graphs in f64 —
 // the incremental acceptance workloads.  Everything else stays on the JAX

@@ -1,5 +1,5 @@
-"""slam_plus_plus_tpu — a TPU-native incremental sparse nonlinear least-squares
-framework for factor-graph SLAM / bundle adjustment.
+"""slam_plus_plus_tpu — an accelerator-native incremental sparse nonlinear
+least-squares framework for factor-graph SLAM / bundle adjustment.
 
 Re-imagines the capabilities of SLAM++ (martin-velas/SLAM_plus_plus; IJRR 2017)
 as a JAX/XLA/Pallas framework:
@@ -7,7 +7,7 @@ as a JAX/XLA/Pallas framework:
   * the reference's fixed-block-size (FBS) compile-time BLAS specialization
     (reference: include/slam/BlockMatrixFBS.h) becomes *batched dense block
     kernels* — same-sized blocks stacked into ``[N, B, B]`` arrays and driven
-    through the MXU with ``vmap``/Pallas;
+    through batched kernels with ``vmap``/Pallas;
   * its OpenMP reduction plans (reference: include/slam/NonlinearSolver_Lambda_Base.h)
     become deterministic ``segment_sum`` scatter assembly;
   * its CUDA Schur path (reference: src/slam/LinearSolver_Schur_GPU.cpp) becomes

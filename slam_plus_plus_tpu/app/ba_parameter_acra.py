@@ -6,7 +6,7 @@ from Motion" (Lui, Ila, Drummond, Mahony): the same incremental SfM sequence
 optimized under XYZ / inverse-depth / inverse-distance landmark
 parameterizations, reporting per-marker chi2 and convergence behavior.
 
-TPU-native: one synthetic Sim3 sequence, three GraphSystems (one per
+Accelerator-native: one synthetic Sim3 sequence, three GraphSystems (one per
 parameterization built from the Sim3 grid in models/sim3_types.py), each
 driven by the same incremental schedule; the comparison table is the
 program output.
@@ -142,7 +142,7 @@ def run_comparison(n_cams=8, n_points=120, seed=3, max_iters=10,
 
 if __name__ == "__main__":
     # analysis tool: reference-fidelity f64 on the host (the many small
-    # per-parameterization kernels are not a TPU-shaped workload)
+    # per-parameterization kernels are not an accelerator-shaped workload)
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)

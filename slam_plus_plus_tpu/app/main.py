@@ -38,7 +38,7 @@ import time
 def build_argparser():
     p = argparse.ArgumentParser(
         prog="slam_plus_plus_tpu",
-        description="TPU-native incremental sparse NLS optimizer "
+        description="Accelerator-native incremental sparse NLS optimizer "
                     "(SLAM / BA), flag-compatible with SLAM++")
     p.add_argument("-i", "--input", default=None)
     p.add_argument("-po", "--pose-only", action="store_true")
@@ -77,7 +77,7 @@ def build_argparser():
                    metavar="DIR", help="write solution_NNNN.txt per solve")
     # multi-host (multi-process) runtime: jax.distributed wiring.  The
     # reference has no distributed backend (SURVEY §2.3 P6); this is the
-    # TPU build's added capability (parallel/multihost.py).
+    # capability this build adds (parallel/multihost.py).
     p.add_argument("--dist-coord", default=None, metavar="HOST:PORT",
                    help="jax.distributed coordinator address")
     p.add_argument("--dist-nprocs", type=int, default=None)
@@ -92,6 +92,8 @@ def main(argv=None):
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
+    from slam_plus_plus_tpu.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
 
     if (args.dist_coord or args.dist_nprocs or
             __import__("os").environ.get("SLAMPP_COORD")):
@@ -117,7 +119,8 @@ def main(argv=None):
         return 1
 
     import slam_plus_plus_tpu.models  # noqa: F401 (register the type zoo)
-    from slam_plus_plus_tpu.io.parser import parse_g2o, peek_dataset
+    from slam_plus_plus_tpu.io.native_parser import ensure_lib, parse_g2o_fast
+    from slam_plus_plus_tpu.io.parser import peek_dataset
     from slam_plus_plus_tpu.solvers.gauss_newton import GaussNewtonSolver
     from slam_plus_plus_tpu.solvers.lm import LevenbergMarquardtSolver
 
@@ -128,12 +131,15 @@ def main(argv=None):
         print(f"dataset: {args.input} ({', '.join(fam) or 'unknown'})")
 
     t_parse0 = time.perf_counter()
-    system = parse_g2o(args.input)
+    system = parse_g2o_fast(args.input)
     t_parse = time.perf_counter() - t_parse0
     if not args.silent:
         nv = len(system.vertex_order)
         ne = sum(s.n for s in system.edge_stores.values())
         print(f"parsed {nv} vertices, {ne} edges in {t_parse:.3f}s")
+    if args.verbose:
+        print("parser: " + ("native" if ensure_lib() is not None
+                            else "python (native reader unavailable)"))
     if not system.edge_stores:
         print("error: no edges in the dataset", file=sys.stderr)
         return 1

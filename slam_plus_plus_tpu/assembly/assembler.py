@@ -1,5 +1,5 @@
-"""Batched lambda/eta assembly — the TPU replacement for the reference's
-reduction plans.
+"""Batched lambda/eta assembly — the accelerator replacement for the
+reference's reduction plans.
 
 Reference analogue: CLambdaOps::{Extend_Lambda, Refresh_Lambda,
 Collect_RightHandSide_Vector} with CMatrixReductionPlan / CVectorReductionPlan
@@ -9,7 +9,7 @@ per-edge Hessian contributions to scratch pages and reduces them with OpenMP,
 we compute *all* per-edge blocks batched on device (vmap of the residual +
 ``jacfwd`` through each vertex's ⊞ retraction) and reduce with
 ``jax.ops.segment_sum`` over host-precomputed segment ids — deterministic and
-MXU-batched.
+batched.
 
 Two-class block layout (the "guided ordering", reference
 CSchurOrdering::n_Calculate_GuidedOrdering, include/slam/LinearSolver_Schur.h:292):
@@ -23,8 +23,8 @@ partitioned:
 
 Mixed tangent dims inside a class are padded to the class block size; padded
 diagonal entries get a unit pivot so factorizations stay SPD, and padded dx
-components are exactly zero.  This is the TPU answer to the reference's FBS
-typelist specialization: one batched kernel per edge *type*, uniform shapes.
+components are exactly zero.  This is the accelerator answer to the
+reference's FBS typelist specialization: one batched kernel per edge *type*, uniform shapes.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from slam_plus_plus_tpu.config import SolverConfig, default_dtype
+from slam_plus_plus_tpu.config import (SolverConfig, apply_matmul_precision,
+                                       device_policy)
 from slam_plus_plus_tpu.graph.system import GraphSystem
 from slam_plus_plus_tpu.models.types import EDGE_TYPES, VERTEX_TYPES
 
@@ -47,9 +48,8 @@ class BlockSystem(NamedTuple):
     """Partitioned block lambda + rhs + chi2 (device pytree).
 
     Block collections are PLANAR — [K, Br*Bc] with the flattened block on the
-    minor (lane) axis — because TPU HBM tiles the trailing two dims T(8,128)
-    and [K, Br, Bc] batches of small blocks would pad every block to 8x128
-    (28x memory for 6x6 f32).  See ops/planar.py.
+    minor axis — so every op on them is a fused elementwise chain over
+    [K]-column vectors.  See ops/planar.py.
     """
 
     pp_blocks: jnp.ndarray  # [Kpp, Bp*Bp] upper pairs, planar
@@ -91,12 +91,9 @@ class Assembler:
                  dtype=None):
         self.config = config or SolverConfig()
         self.dtype = dtype if dtype is not None else self.config.resolved_dtype()
+        apply_matmul_precision()
         self._build_structure(system)
         self._build_device_plan(system)
-        import jax.numpy as _jnp
-        self._kernel_precision = ("highest" if (self.dtype == _jnp.float32 and
-                                                self.pl_uniform is None)
-                                  else None)
         self._assemble_jit = jax.jit(self._assemble_impl)
         self._chi2_jit = jax.jit(self._chi2_impl)
         self._update_jit = jax.jit(self._update_impl)
@@ -174,14 +171,12 @@ class Assembler:
                 slot_class.append(self.type_class[tname])
             raw_plans.append([ename, et, E, slot_local, slot_cslot, tuple(slot_class)])
 
-        # ---- uniform per-landmark edge layout (TPU fast path) ----------
+        # ---- uniform per-landmark edge layout (BA fast path) -----------
         #
         # Sort + pad each landmark-observing plan's edges into [Nl, M] groups
         # (dummy edges carry zero information) so that every landmark-side
-        # reduction and the Schur panel build become pure reshapes.  Measured
-        # on v5e: any gather/scatter of O(E) rows costs ~11 ns/row even for
-        # the identity permutation, while reshapes are free and one-hot GEMM
-        # reductions run at MXU speed.  This is the TPU analogue of the
+        # reduction and the Schur panel build become pure reshapes instead
+        # of gathers/scatters of O(E) rows.  The analogue of the
         # reference's cache-blocked matrix reduction plans
         # (CMatrixReductionPlan, include/slam/NonlinearSolver_Lambda_Base.h).
         self.pl_uniform = None
@@ -409,14 +404,14 @@ class Assembler:
         for plan in self.plans:
             self._kernels[plan.name] = self._make_kernel(plan)
 
-        # fused Pallas kernels for hot edge types (currently P2C — the BA
-        # flagship); auto-enabled on TPU f32, interpret-mode elsewhere when
-        # forced via config.use_pallas
+        # fused Pallas kernel for the hot edge type (P2C — the BA
+        # flagship); auto-enabled on the GPU in f32.  It compiles only for
+        # the GPU: "on" elsewhere fails at the first assembly.
         self._pallas_plans = ()
-        use_pallas = getattr(self.config, "use_pallas", "auto")
+        use_pallas = self.config.use_pallas
         pallas_ok = (use_pallas == "on" or
                      (use_pallas == "auto" and
-                      jax.default_backend() == "tpu" and
+                      device_policy().platform == "gpu" and
                       self.dtype == jnp.float32))
         if pallas_ok:
             self._pallas_plans = tuple(
@@ -450,9 +445,7 @@ class Assembler:
         """Batched per-edge kernel producing PLANAR (flattened) contributions.
 
         Everything block-shaped leaves the kernel flattened to its last axis
-        ([E, B], [E, Br*Bc]) — TPU HBM tiles the trailing two dims T(8,128),
-        so [E, m, B] batches of small blocks would pad each block to 8x128
-        (28x memory for 6x6 f32).  See ops/planar.py.
+        ([E, B], [E, Br*Bc]).  See ops/planar.py.
         """
         et = EDGE_TYPES[plan.name]
         vts = [VERTEX_TYPES[t] for t in et.vertex_types]
@@ -554,25 +547,9 @@ class Assembler:
         over edges and distributes with shard_map + psum (parallel/dist.py).
 
         All block collections are PLANAR: pp [Kpp, Bp*Bp], pl [Kpl, Bp*Bl],
-        ll [Nl, Bl*Bl] (see ops/planar.py for why).
-
-        Precision: on TPU the default f32 matmul rounds operands through
-        bf16 MXU passes — the per-edge J^T W J products then carry ~1e-2
-        relative error and (being two-pass products) lose exact block
-        symmetry, which a DEEP MIS-Schur elimination amplifies into an O(1)
-        subspace error (observed at w100K: 2.6% asymmetric, singular dense
-        bottom from an otherwise-correct descend).  Pose-graph layouts
-        (flat; the deep-elimination consumers) therefore pin full-f32
-        kernels; the uniform BA layout keeps the fast default — its dense
-        Schur path is robust to bf16-level lambda error (chi2 parity holds)
-        and assembly is on the critical 11 ms/iter path.
+        ll [Nl, Bl*Bl] (see ops/planar.py).  Matmul precision follows the
+        device policy (config.apply_matmul_precision).
         """
-        if self._kernel_precision is not None:
-            with jax.default_matmul_precision(self._kernel_precision):
-                return self._edge_sums_body(states, edge_data)
-        return self._edge_sums_body(states, edge_data)
-
-    def _edge_sums_body(self, states, edge_data):
         dt = self.dtype
         Bp, Bl = self.Bp, self.Bl
         Np, Nl = max(self.Np, 1), max(self.Nl, 1)
@@ -609,11 +586,9 @@ class Assembler:
                         (Nl, uniform_M, st.shape[1])).reshape(
                             plan.E, st.shape[1]))
                 elif self._onehot_ok(plan.E, st.shape[0]):
-                    # one-hot GEMM gather: MXU row selection beats the
-                    # ~11 ns/row TPU gather for small vertex tables.
+                    # one-hot GEMM gather for small vertex tables.
                     # HIGHEST precision: selection must reproduce the f32
-                    # state bits exactly (default TPU f32 matmul rounds
-                    # through bf16 passes)
+                    # state bits exactly
                     oh = (sl[:, None] ==
                           jnp.arange(st.shape[0], dtype=sl.dtype)).astype(dt)
                     gathered.append(jnp.matmul(
@@ -645,8 +620,7 @@ class Assembler:
                     ll = ll + Hll[li].reshape(Nl, M, Bl * Bl).sum(axis=1)
                     li += 1
                 else:
-                    # segment_sum lowers to sort+segmented-reduce on TPU,
-                    # much faster than the serialized scatter-add lowering
+                    # flat layout: segment-sum by landmark
                     eta_l = eta_l + jax.ops.segment_sum(
                         gs[k], cs, num_segments=Nl)
                     ll = ll + jax.ops.segment_sum(
@@ -675,13 +649,13 @@ class Assembler:
     @staticmethod
     def _onehot_ok(total, K, itemsize=4):
         """One-hot GEMM reduction beats segment_sum when the target count is
-        small (the [total, K] one-hot operand is a bounded MXU GEMM; measured
-        3.4-7x faster on v5e for K ~ 100) and the operand fits."""
+        small (the [total, K] one-hot operand is a bounded GEMM) and the
+        operand fits."""
         return (K <= 1024 and total >= 4 * K and
                 total * K * itemsize <= (512 << 20))
 
     def _reduce_segments(self, chunks, segids, K, dt):
-        """Sum [Ei, d] chunks into K segments: one-hot MXU GEMM when
+        """Sum [Ei, d] chunks into K segments: one-hot GEMM when
         profitable, else segment_sum."""
         if not chunks:
             return jnp.zeros((max(K, 1), self.Bp), dtype=dt)
@@ -694,42 +668,22 @@ class Assembler:
         return jax.ops.segment_sum(vals, ids, num_segments=K)
 
     def _pallas_edge_terms(self, plan, gathered, data):
-        """Fused Pallas path for P2C: transpose/pad, run the kernel,
-        transpose back to the generic contribution signature."""
-        from slam_plus_plus_tpu.ops.pallas_p2c import TILE, p2c_edge_terms
+        """Fused Pallas path for P2C, in the generic kernel's contribution
+        signature."""
+        from slam_plus_plus_tpu.ops import pallas_p2c
         E = plan.E
-        Epad = ((E + TILE - 1) // TILE) * TILE
-        pad = Epad - E
-
-        def prep(x, d):
-            x = x.reshape(E, d)
-            if pad:
-                x = jnp.pad(x, ((0, pad), (0, 0)))
-            return x.T
-
-        cam_t = prep(gathered[0], 11)
-        pt_t = prep(gathered[1], 3)
-        z_t = prep(data["z"], 2)
-        info_t = prep(data["info"].reshape(E, 4), 4)
-        interpret = jax.default_backend() != "tpu"
-        chi2_t, hdiag_t, gc_t, gp_t, hcc_t, hcp_t, hpp_t = p2c_edge_terms(
-            cam_t, pt_t, z_t, info_t, interpret=interpret)
-        chi2_e = chi2_t[0, :E]
-        hdiag_e = hdiag_t[0, :E]
-        gs = (gc_t[:, :E].T, gp_t[:, :E].T)
-        Hpp = (hcc_t[:, :E].T,)
-        Hpl = (hcp_t[:, :E].T,)
-        Hll = (hpp_t[:, :E].T,)
-        return chi2_e, hdiag_e, gs, Hpp, Hll, Hpl
+        chi2_e, hdiag_e, gc, gp, hcc, hcp, hpp = pallas_p2c.p2c_edge_terms(
+            gathered[0].reshape(E, 11), gathered[1].reshape(E, 3),
+            data["z"].reshape(E, 2), data["info"].reshape(E, 4))
+        return chi2_e, hdiag_e, (gc, gp), (hcc,), (hpp,), (hcp,)
 
     def _reduce_contribs(self, chunks, segids, K, d, dt, gather_attr):
         """Sum contribution chunks into K planar blocks.
 
         When every block has exactly one contributor (BA: each cam-landmark
         pair appears once), the segment reduction is a pure permutation and
-        a host-precomputed GATHER replaces it — TPU gathers are fast where
-        scatters/sorts are not.  The gather tables are built host-side in
-        _build_device_plan; DistributedAssembler disables them (shard-local
+        a host-precomputed GATHER replaces it.  The gather tables are built
+        host-side in _build_device_plan; DistributedAssembler disables them (shard-local
         chunks are partial)."""
         if not chunks:
             return jnp.zeros((max(K, 1), d), dtype=dt)
@@ -758,7 +712,7 @@ class Assembler:
     # active prefix get zero information (contributing exactly nothing),
     # inactive vertices get unit diagonal pivots (dx = 0).  The counts are
     # traced scalars, so the entire incremental run reuses ONE compiled
-    # step — the TPU answer to the reference's incremental allocation
+    # step — the accelerator answer to the reference's incremental allocation
     # (Extend_Lambda, reference include/slam/NonlinearSolver_Lambda_Base.h).
 
     def _mask_edge_data(self, edge_data, counts):

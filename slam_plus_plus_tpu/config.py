@@ -1,14 +1,15 @@
-"""Global configuration: dtype policy and solver settings.
+"""Global configuration: the device policy and solver settings.
 
-The reference is double-precision everywhere (C++ ``double``).  TPUs execute
-float32/bfloat16 natively; float64 is software-emulated and slow.  Policy:
+The reference is double-precision everywhere (C++ ``double``).  Policy:
 
-  * on CPU (tests, verification): float64, bit-matching a NumPy/SciPy oracle;
-  * on TPU: float32 compute with float64-equivalent accuracy recovered through
-    iterative refinement of the linear solves (see linalg/refine.py).
+  * on CPU (tests, verification): float64 when x64 is on, bit-matching a
+    NumPy/SciPy oracle;
+  * on the GPU: float32 compute at full f32 matmul precision (no TF32),
+    with float64-equivalent accuracy recovered through iterative
+    refinement of the linear solves.
 
-``default_dtype()`` picks per-backend; every array-creating entry point takes
-an optional dtype override.
+``device_policy()`` is the one place that keys behaviour on the backend;
+every array-creating entry point takes an optional dtype override.
 
 Reference analogue: the three-tier config system of SLAM++ (CMake defines /
 ConfigSolvers.h / TCommandLineArgs — reference include/slam/ConfigSolvers.h:24,
@@ -28,13 +29,50 @@ def x64_enabled() -> bool:
     return bool(jax.config.read("jax_enable_x64"))
 
 
-def default_dtype(platform: Optional[str] = None):
-    """float64 on CPU when x64 is on; float32 otherwise (TPU)."""
+@dataclasses.dataclass(frozen=True)
+class DevicePolicy:
+    """What the solvers do differently per backend."""
+
+    platform: str                     # "cpu" | "gpu"
+    dtype: object                     # compute dtype of the solve path
+    dense_limit: int                  # scalar dims up to which the direct
+                                      # dense Cholesky path is taken
+    matmul_precision: Optional[str]   # jax_default_matmul_precision, or
+                                      # None for the backend's default
+
+
+def device_policy(platform: Optional[str] = None) -> DevicePolicy:
+    """The device policy of ``platform`` (default: JAX's default backend).
+
+    The GPU dense limit was chosen by timing the manhattan3500 ``-nsp 1``
+    lambda replay on an H100 at 6000 and 20000 (CHANGES.md)."""
     if platform is None:
         platform = jax.default_backend()
-    if platform == "cpu" and x64_enabled():
-        return jnp.float64
-    return jnp.float32
+    if platform == "cpu":
+        return DevicePolicy("cpu",
+                            jnp.float64 if x64_enabled() else jnp.float32,
+                            dense_limit=6000, matmul_precision=None)
+    if platform == "gpu":
+        # f32 products must not run in TF32: the solve path is checked
+        # against f64 goldens at full f32 precision
+        return DevicePolicy("gpu", jnp.float32, dense_limit=6000,
+                            matmul_precision="highest")
+    raise ValueError(f"no device policy for platform {platform!r} "
+                     "(known: cpu, gpu)")
+
+
+def apply_matmul_precision(policy: Optional[DevicePolicy] = None) -> None:
+    """Set JAX's default matmul precision to the policy's.  Solvers call
+    this before tracing (Assembler construction), so every f32 product on
+    the solve path follows the policy."""
+    prec = (policy or device_policy()).matmul_precision
+    if prec is not None and jax.config.jax_default_matmul_precision != prec:
+        jax.config.update("jax_default_matmul_precision", prec)
+
+
+def default_dtype(platform: Optional[str] = None):
+    """The device policy's compute dtype."""
+    return device_policy(platform).dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,18 +113,17 @@ class SolverConfig:
     use_schur: bool = False
     # landmark-class elimination policy: "auto" splits off the landmark
     # class for Schur only when the reduced (pose/camera) system is small
-    # enough for the dense MXU path — the reference's own default applies
+    # enough for the dense path — the reference's own default applies
     # Schur on request (-us) and solves many-pose landmark SLAM with a
     # fill-reducing ordering over ALL variables (unit_tests.sh cityTrees10k
     # row has no -us).  "off" always mixes; "on" always splits.
     schur_split: str = "auto"
     dtype: Optional[object] = None   # None = default_dtype()
-    use_pallas: str = "auto"         # auto | on | off — fused TPU edge kernels
+    use_pallas: str = "auto"         # auto | on | off — fused GPU P2C kernel
     # "uniform": sort + pad observation edges into a per-landmark [Nl, M]
     # layout at build time so every landmark-side reduction and the Schur
-    # panel build become pure reshapes (TPU gathers/scatters of O(E) rows
-    # cost ~11 ns/row regardless of locality — measured; the uniform layout
-    # removes them entirely).  "auto" enables it for batch landmark
+    # panel build become pure reshapes instead of gathers/scatters of O(E)
+    # rows.  "auto" enables it for batch landmark
     # problems when padding inflates the edge count <= 1.5x; "flat" keeps
     # parse order (required by the incremental prefix-masking engines).
     edge_layout: str = "auto"        # auto | uniform | flat

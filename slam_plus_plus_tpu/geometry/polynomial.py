@@ -10,7 +10,7 @@ optional robust score functions / IRLS, :543-1168).  The reference's
 five-point solver carries its own inline elimination; this module is the
 standalone, reusable component it also ships.
 
-TPU-first shape: the closed-form solvers are batched jnp over a leading
+Accelerator-first shape: the closed-form solvers are batched jnp over a leading
 axis (one vectorized dispatch for any number of equations — the role the
 reference's templated scalar solvers fill one equation at a time); the
 general solver uses the companion-matrix eigenvalues on host numpy (LAPACK,

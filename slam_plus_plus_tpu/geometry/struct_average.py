@@ -5,7 +5,7 @@ CAverage_RigidStructure::Calculate — each observation of an n-point rigid
 structure is Kabsch-aligned to the first observation and the aligned point
 clouds are averaged, then re-centered.
 
-TPU-first shape: all observations align in ONE batched pass (vmapped
+Accelerator-first shape: all observations align in ONE batched pass (vmapped
 Kabsch over the observation axis) instead of the reference's sequential
 per-observation loop; the SVDs are tiny 3x3 batched ops.
 """

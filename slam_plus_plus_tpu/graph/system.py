@@ -4,9 +4,9 @@ Reference analogue: CFlatSystem (reference include/slam/FlatSystem.h:1915)
 with its per-type multipools, auto vertex creation on edge insert
 (r_Get_Vertex, FlatSystem.h:2457) and r_Add_Edge (FlatSystem.h:2651).
 
-TPU-first inversion: instead of pools of objects with facade dispatch, each
-vertex/edge type owns *columnar numpy arrays* with amortized capacity
-doubling.  The device pipeline consumes these arrays directly (one
+Accelerator-first inversion: instead of pools of objects with facade
+dispatch, each vertex/edge type owns *columnar numpy arrays* with amortized
+capacity doubling.  The device pipeline consumes these arrays directly (one
 ``vmap``-batched residual per edge type), so "type erasure" costs nothing:
 there are as many traced functions as edge types, not as many as edges.
 

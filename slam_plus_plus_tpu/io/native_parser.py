@@ -45,8 +45,8 @@ def ensure_lib() -> Optional[ctypes.CDLL]:
         return _lib
     if not os.path.exists(_LIB_PATH):
         try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
+            subprocess.run(["make", "-C", _NATIVE_DIR, "libspp_native.so"],
+                           check=True, capture_output=True, timeout=120)
         except Exception:
             return None
     try:

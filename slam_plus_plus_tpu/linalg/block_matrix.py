@@ -4,7 +4,7 @@ Reference analogue: CUberBlockMatrix (include/slam/BlockMatrix.h) — the
 reference's general block matrix supports heterogeneous block sizes,
 slicing/permutation, LU/Cholesky, MatrixMarket load/save, and sparsity
 rasterization (incl. structure-diff images, BlockMatrix.h:253-335).  In the
-TPU build the SOLVER hot path never touches this class (it runs on the
+device build the SOLVER hot path never touches this class (it runs on the
 planar device engine, ops/planar.py + linalg/block_cholesky.py); this module
 fills the general-purpose API role: tools, tests, interop, debugging.
 

@@ -3,8 +3,8 @@
 Fills the role of the reference's CLinearSolver_DenseEigen / CLinearSolver_DenseGPU
 (reference include/slam/LinearSolver_Schur.h:1046,1219): the reduced camera
 system after Schur elimination is small and dense — exactly the regime where
-a single MXU-tiled Cholesky wins.  XLA's `cholesky`/`triangular_solve` are
-already blocked and MXU-scheduled; we add the planar-block densification
+a single dense Cholesky wins.  XLA's `cholesky`/`triangular_solve` are
+already blocked (cuSOLVER on the GPU); we add the planar-block densification
 (flat-index scatter — see ops/planar.py for the layout rationale).
 """
 

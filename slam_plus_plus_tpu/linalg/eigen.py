@@ -3,9 +3,9 @@
 Reference analogue: CSymEigsSolver / CSymEigsShiftSolver (reference
 include/slam/Eigenvalues.h:179,378 — Lanczos with implicit restarts,
 Spectra-style, used for gauge/conditioning analysis and the
-slam_schur_orderings research tool).  TPU formulation: LOBPCG over the
+slam_schur_orderings research tool).  Device formulation: LOBPCG over the
 planar block SpMV (linalg/spmv.lambda_spmv) — blocked matrix-free iteration
-that maps to batched GEMMs, the natural MXU shape — with a dense fallback
+that maps to batched GEMMs — with a dense fallback
 for small systems.
 
 API mirrors the reference's use cases: largest/smallest magnitude
@@ -47,7 +47,7 @@ def sym_eigs(asm, bs, k: int = 6, which: str = "LM",
     if n <= _DENSE_LIMIT or which == "SM":
         # smallest-magnitude needs an inverse operator; for the problem sizes
         # where conditioning analysis is run (research tool), dense is exact
-        # and still MXU-friendly
+        # and still GEMM-shaped
         A = _dense_lambda(asm, bs)
         w, V = np.linalg.eigh(A)
         order = np.argsort(np.abs(w))
@@ -84,7 +84,7 @@ def condition_estimate(asm, bs) -> float:
     Large systems stay matrix-free: LOBPCG gives the largest eigenvalue
     w_hi directly; the smallest comes from shift-invert — LOBPCG on
     A^-1 with the inner solves done by matrix-free CG over the planar
-    block SpMV.  This is the TPU formulation of the reference's
+    block SpMV.  This is the device formulation of the reference's
     shift-invert mode (CSymEigsShiftSolver, Eigenvalues.h:378)."""
     n = asm.Np * asm.Bp + asm.Nl * asm.Bl
     if n <= _DENSE_LIMIT:

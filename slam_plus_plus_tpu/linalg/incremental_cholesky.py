@@ -8,10 +8,10 @@ Refresh_R_IncR11/Refresh_d_IncR11): when new-edge Hessian contributions
 from those pairs change.  Reachability follows the elimination levels of
 linalg/block_cholesky.py.
 
-TPU-shaped redesign (round 4): the previous engine unrolled a Python loop
-over the L elimination levels into one XLA graph of ~15 ops/level — hundreds
-of tiny sequential ops, the wrong shape for the chip (80 ms/step observed on
-TPU, ~11 ms on CPU) and a multi-second compile.  This version:
+Accelerator-shaped redesign (round 4): the previous engine unrolled a Python
+loop over the L elimination levels into one XLA graph of ~15 ops/level —
+hundreds of tiny sequential ops, the wrong shape for an accelerator (~11 ms
+per step on CPU) and a multi-second compile.  This version:
 
   * stores the whole factorization FLAT: one [sum K_l, B*B] array per kind
     (H pattern blocks incl. the bottom, pivot inverses C, couplings W, fill
@@ -1182,7 +1182,7 @@ class IncrementalCholesky:
         SpMV's (~1e-6), which keeps the REPLAY TRAJECTORY stable — the f32
         push decisions (|dx| vs threshold) stop flipping against the f64
         oracle.  Diagnosed on trees10k incr fastL (ratio 1.0947 from
-        decision flips over 4342 solve points, docs/ACCEPTANCE_TPU.md);
+        decision flips over 4342 solve points in f32);
         periodic redescents did NOT fix it because the factor was never
         the problem.  f64 paths skip the extra work."""
         dx = self._solve_scan(stores, eta0)

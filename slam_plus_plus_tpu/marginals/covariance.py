@@ -4,12 +4,12 @@ Reference analogue: CMarginals (reference include/slam/Marginals.h:70-5224,
 the ICRA-2015 fast covariance recovery) and CSchurComplement_Marginals
 (reference include/slam/BAMarginals.h:388, the 3DV-2017 Schur-domain BA
 marginals).  The reference recovers requested parts of Sigma = lambda^-1 by a
-backward recurrence over the sparse Cholesky factor R; the TPU formulation
+backward recurrence over the sparse Cholesky factor R; the device formulation
 goes through the same two-level structure the solvers already use:
 
   * primary (pose/camera) covariance: Sigma_pp = SC^-1 where SC is the
     reduced system after eliminating the landmark class — computed via one
-    dense MXU Cholesky + triangular solves against identity (the reduced
+    dense Cholesky + triangular solves against identity (the reduced
     system is small by construction, the same reasoning as the reference's
     __SCHUR_USE_DENSE_SOLVER default);
   * landmark block-diagonal: Sigma_l = C_l^-1 + W_l^T Sigma_pp W_l with
@@ -214,7 +214,7 @@ class Marginals:
         u = bs.pl_blocks
         w = planar.bmm(u, c_inv[sch._pl_cols_dev], Bp, Bl, Bl)  # [Kpl, Bp*Bl]
 
-        # SC and its inverse (dense, MXU)
+        # SC and its inverse (dense)
         sc0 = sch._dense_pp(bs.pp_blocks)
         u_sorted = u[sch._order_dev]
         w_sorted = w[sch._order_dev]

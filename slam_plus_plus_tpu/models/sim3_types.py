@@ -254,7 +254,7 @@ def _intr_of(cam_state):
 
 def _z_intr(z):
     """LS unary edges carry the (constant) owner intrinsics baked into the
-    measurement tail [u, v, fx, fy, cx, cy, d] — the TPU registry's
+    measurement tail [u, v, fx, fy, cx, cy, d] — this registry's
     equivalent of the reference's constant m_p_camera pointer
     (Sim3_Types.h:732: 'This is needed for the intrinsics')."""
     return z[:2], (z[2], z[3], z[4], z[5], z[6])

@@ -1,19 +1,21 @@
-"""Fused Pallas TPU kernel for P2C (mono reprojection) edge terms.
+"""Fused Pallas kernel (Triton route) for P2C (mono reprojection) edge terms.
 
 The hot assembly kernel of the flagship BA workload: residual + analytic
 jacobians + all Hessian/gradient block products for every observation, in
-one pass — the TPU analogue of the reference's FBS-specialized per-edge
+one pass — the analogue of the reference's FBS-specialized per-edge
 Hessian code (reference include/slam/BA_Types.h:403 CEdgeP2C3D +
 BASolverBase.h projection).
 
-Layout: everything transposed [d, E] — the edge index rides the 128-lane
-axis, per-edge scalars are rows, so all math is elementwise on [TILE_E]
-vectors in VMEM.  Inputs are pre-gathered camera/point states; outputs are
-the planar per-edge contributions the assembler reduces.
+Layout: the assembler's own edge-major arrays ([E, d], no transposes).  One
+program handles ``BLOCK`` edges (a power of two, as Triton requires); each
+per-edge scalar is one strided column load ``ref[:, c]`` of BLOCK values,
+so all math is elementwise on [BLOCK] vectors held in registers.  About 20
+floats go in and 74 come out per edge.  The wrapper pads E up to a multiple
+of BLOCK with zero-information edges and slices the padding off.
 
 The generic jacfwd path computes identical values (the assembler selects
-this kernel when the edge type / block sizes match and pallas is enabled);
-equality is asserted in tests via interpret mode.
+this kernel when the edge type / block sizes match and it is enabled);
+equality is asserted in tests with the kernel in interpret mode.
 """
 
 from __future__ import annotations
@@ -23,23 +25,27 @@ import functools
 import jax
 import jax.numpy as jnp
 
-TILE = 512
+BLOCK = 256       # edges per program
+NUM_WARPS = 4
+
+# per-edge output widths, in kernel output order
+OUT_WIDTHS = (("chi2", 0), ("hdiag", 0), ("g_cam", 6), ("g_pt", 3),
+              ("hcc", 36), ("hcp", 18), ("hpp", 9))
 
 
 def _p2c_kernel(cam_ref, pt_ref, z_ref, info_ref,
                 chi2_ref, hdiag_ref, gc_ref, gp_ref,
                 hcc_ref, hcp_ref, hpp_ref):
-    f32 = cam_ref.dtype
-    # unpack per-edge rows ([TILE] vectors)
-    tx, ty, tz = cam_ref[0, :], cam_ref[1, :], cam_ref[2, :]
-    ax, ay, az = cam_ref[3, :], cam_ref[4, :], cam_ref[5, :]
-    fx, fy = cam_ref[6, :], cam_ref[7, :]
-    cx, cy = cam_ref[8, :], cam_ref[9, :]
-    dd = cam_ref[10, :]
-    px, py, pz = pt_ref[0, :], pt_ref[1, :], pt_ref[2, :]
-    z0, z1 = z_ref[0, :], z_ref[1, :]
-    i00, i01 = info_ref[0, :], info_ref[1, :]
-    i10, i11 = info_ref[2, :], info_ref[3, :]
+    # unpack per-edge columns ([BLOCK] vectors)
+    tx, ty, tz = cam_ref[:, 0], cam_ref[:, 1], cam_ref[:, 2]
+    ax, ay, az = cam_ref[:, 3], cam_ref[:, 4], cam_ref[:, 5]
+    fx, fy = cam_ref[:, 6], cam_ref[:, 7]
+    cx, cy = cam_ref[:, 8], cam_ref[:, 9]
+    dd = cam_ref[:, 10]
+    px, py, pz = pt_ref[:, 0], pt_ref[:, 1], pt_ref[:, 2]
+    z0, z1 = z_ref[:, 0], z_ref[:, 1]
+    i00, i01 = info_ref[:, 0], info_ref[:, 1]
+    i10, i11 = info_ref[:, 2], info_ref[:, 3]
 
     # Rodrigues rotation from axis-angle (Taylor-guarded)
     th2 = ax * ax + ay * ay + az * az
@@ -75,7 +81,10 @@ def _p2c_kernel(cam_ref, pt_ref, z_ref, info_ref,
     e0 = z0 - hx
     e1 = z1 - hy
 
-    chi2_ref[0, :] = e0 * (i00 * e0 + i01 * e1) + e1 * (i10 * e0 + i11 * e1)
+    # weighted residual: S = info @ [e0; e1]
+    se0 = i00 * e0 + i01 * e1
+    se1 = i10 * e0 + i11 * e1
+    chi2_ref[...] = e0 * se0 + e1 * se1
 
     # projection chain: dh/dp_cam = M (2x2 distortion) @ P (2x3 pinhole)
     m00 = w + 2.0 * k * du * du
@@ -107,7 +116,8 @@ def _p2c_kernel(cam_ref, pt_ref, z_ref, info_ref,
     Rc = ((r00, r10, r20), (r01, r11, r21), (r02, r12, r22))
     Jt = [dh_dot(*Rc[c]) for c in range(3)]          # dh/d(delta t) cols
     # R [p]x columns: R @ col_i of [p]x
-    px_cols = ((0.0 * px, pz, -py), (-pz, 0.0 * px, px), (py, -px, 0.0 * px))
+    zero = 0.0 * px
+    px_cols = ((zero, pz, -py), (-pz, zero, px), (py, -px, zero))
     Jw = []
     for c in range(3):
         vx, vy, vz = px_cols[c]
@@ -121,73 +131,76 @@ def _p2c_kernel(cam_ref, pt_ref, z_ref, info_ref,
     Jcam = [(-a, -b) for (a, b) in Jt + Jw]          # 6 columns, 2 rows
     Jpt = [(-a, -b) for (a, b) in Jt]                # point cols == t cols
 
-    # weighted rows: S = info @ [e0; e1]
-    se0 = i00 * e0 + i01 * e1
-    se1 = i10 * e0 + i11 * e1
-
     # g = -J^T (info r)
     for c in range(6):
         a, b = Jcam[c]
-        gc_ref[c, :] = -(a * se0 + b * se1)
+        gc_ref[:, c] = -(a * se0 + b * se1)
     for c in range(3):
         a, b = Jpt[c]
-        gp_ref[c, :] = -(a * se0 + b * se1)
+        gp_ref[:, c] = -(a * se0 + b * se1)
 
-    # H blocks: H_ab[c1,c2] = Ja_c1^T info Jb_c2  (2-vector contraction)
-    def hprod(JA, JB, out_ref, n1, n2):
-        hd = None
-        for c1 in range(n1):
-            a1, b1 = JA[c1]
+    # H blocks: H_ab[c1,c2] = Ja_c1^T info Jb_c2  (2-vector contraction);
+    # returns the diagonal entries when JA is JB
+    def hprod(JA, JB, out_ref):
+        diag = []
+        for c1, (a1, b1) in enumerate(JA):
             wa = i00 * a1 + i10 * b1
             wb = i01 * a1 + i11 * b1
-            for c2 in range(n2):
-                a2, b2 = JB[c2]
-                out_ref[c1 * n2 + c2, :] = wa * a2 + wb * b2
-        return hd
+            for c2, (a2, b2) in enumerate(JB):
+                h = wa * a2 + wb * b2
+                out_ref[:, c1 * len(JB) + c2] = h
+                if c1 == c2:
+                    diag.append(h)
+        return diag
 
-    hprod(Jcam, Jcam, hcc_ref, 6, 6)
-    hprod(Jcam, Jpt, hcp_ref, 6, 3)
-    hprod(Jpt, Jpt, hpp_ref, 3, 3)
+    diag = hprod(Jcam, Jcam, hcc_ref)
+    hprod(Jcam, Jpt, hcp_ref)
+    diag += hprod(Jpt, Jpt, hpp_ref)
 
     # hdiag = max diagonal over both vertex Hessians
-    hd = hcc_ref[0, :]
-    for c in range(1, 6):
-        hd = jnp.maximum(hd, hcc_ref[c * 6 + c, :])
-    for c in range(3):
-        hd = jnp.maximum(hd, hpp_ref[c * 3 + c, :])
-    hdiag_ref[0, :] = hd
+    hd = diag[0]
+    for h in diag[1:]:
+        hd = jnp.maximum(hd, h)
+    hdiag_ref[...] = hd
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def p2c_edge_terms(cam_t, pt_t, z_t, info_t, interpret=False):
-    """Inputs transposed [d, E] (E a multiple of TILE, zero-info padded).
+def p2c_edge_terms(cam, pt, z, info, interpret=False):
+    """Per-edge P2C terms from edge-major inputs: cam [E, 11], pt [E, 3],
+    z [E, 2], info [E, 4] (row-major 2x2).  Any E; padded internally.
 
-    Returns (chi2 [1,E], hdiag [1,E], g_cam [6,E], g_pt [3,E],
-             hcc [36,E], hcp [18,E], hpp [9,E])."""
+    Returns (chi2 [E], hdiag [E], g_cam [E, 6], g_pt [E, 3],
+             hcc [E, 36], hcp [E, 18], hpp [E, 9])."""
     from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plt
 
-    E = cam_t.shape[1]
-    dt = cam_t.dtype
-    n_tiles = E // TILE
+    E = cam.shape[0]
+    dt = cam.dtype
+    n_blocks = max(pl.cdiv(E, BLOCK), 1)
+    pad = n_blocks * BLOCK - E
+    if pad:
+        # zero-information padding edges; the camera pads to the first real
+        # camera so the padded projections stay finite
+        cam = jnp.concatenate([cam, jnp.broadcast_to(cam[:1], (pad, 11))])
+        pt, z, info = (jnp.pad(x, ((0, pad), (0, 0))) for x in (pt, z, info))
+    Ep = E + pad
 
     def spec(d):
-        return pl.BlockSpec((d, TILE), lambda i: (0, i))
+        if d == 0:
+            return pl.BlockSpec((BLOCK,), lambda i: (i,))
+        return pl.BlockSpec((BLOCK, d), lambda i: (i, 0))
 
-    out_shapes = [
-        jax.ShapeDtypeStruct((1, E), dt),   # chi2
-        jax.ShapeDtypeStruct((1, E), dt),   # hdiag
-        jax.ShapeDtypeStruct((6, E), dt),   # g_cam
-        jax.ShapeDtypeStruct((3, E), dt),   # g_pt
-        jax.ShapeDtypeStruct((36, E), dt),  # hcc
-        jax.ShapeDtypeStruct((18, E), dt),  # hcp
-        jax.ShapeDtypeStruct((9, E), dt),   # hpp
-    ]
-    return pl.pallas_call(
+    outs = pl.pallas_call(
         _p2c_kernel,
-        grid=(n_tiles,),
+        grid=(n_blocks,),
         in_specs=[spec(11), spec(3), spec(2), spec(4)],
-        out_specs=[spec(1), spec(1), spec(6), spec(3), spec(36), spec(18),
-                   spec(9)],
-        out_shape=out_shapes,
+        out_specs=[spec(d) for _n, d in OUT_WIDTHS],
+        out_shape=[jax.ShapeDtypeStruct((Ep, d) if d else (Ep,), dt)
+                   for _n, d in OUT_WIDTHS],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )(cam_t, pt_t, z_t, info_t)
+        name="p2c_edge_terms",
+    )(cam, pt, z, info)
+    return tuple(o[:E] for o in outs) if pad else tuple(outs)

@@ -1,7 +1,7 @@
 """Distributed (multi-chip) lambda/eta assembly over a device mesh.
 
 The reference is single-process (SURVEY.md P6: no MPI/NCCL anywhere in its
-tree); this is the new capability the TPU build adds.  Design:
+tree); this is the new capability this build adds.  Design:
 
   * edges are the data-parallel axis: each device holds a 1/n slice of every
     edge type's arrays (measurements, informations, slot indices, segment
@@ -9,7 +9,8 @@ tree); this is the new capability the TPU build adds.  Design:
     edge pools (reference include/slam/FlatSystem.h:932), scaled across chips;
   * every shard computes its partial block sums with the same batched
     kernels + ``segment_sum`` used on one chip, then one ``psum`` over the
-    mesh reduces lambda/eta into replicated arrays — collectives ride ICI;
+    mesh reduces lambda/eta into replicated arrays (NCCL all-reduce over
+    NVLink between the cards of a host);
   * the (small, replicated) solve runs identically on every device, so no
     gather is needed before the vertex update.
 
@@ -132,7 +133,7 @@ class DistributedSchurSolver:
     (reference: the two SpDGEMMs, LinearSolver_Schur.h:1744-1767, GPU path
     LinearSolver_Schur_GPU.cpp:2190); here each device owns a contiguous
     slice of the (column-sorted) landmark blocks, builds its partial dense
-    panels locally from the REPLICATED BlockSystem, and one psum over ICI
+    panels locally from the REPLICATED BlockSystem, and one psum over NVLink
     reduces the partial SC.  The small reduced solve + landmark backsub run
     replicated (same reasoning as the reference's dense-Schur default).
 

@@ -22,7 +22,7 @@ mesh:
     reduced systems (LinearSolver_Schur.h:49).
 
 Per-level collective volume: one W all-gather ([Ku, B*B]) + one next-H
-psum ([K_next, B*B]) — a few MB per level at w100K scale, ICI traffic.
+psum ([K_next, B*B]) — a few MB per level at w100K scale, over NVLink.
 The produced factor is replicated, so `solve_with_factor` (and the
 recurrent marginals) run unchanged from the single-device engine.
 """

@@ -1,7 +1,7 @@
 """Multi-host (multi-process) entry: jax.distributed wiring + global mesh.
 
 The reference is single-process (SURVEY.md §2.3 P6: no MPI/NCCL anywhere in
-its tree); multi-host execution is the capability the TPU build adds
+its tree); multi-host execution is a capability this build adds
 (SURVEY §7 stage 9).  Design:
 
   * one controller process per host, `jax.distributed.initialize` against a
@@ -9,10 +9,12 @@ its tree); multi-host execution is the capability the TPU build adds
   * `global_mesh()` builds a 1-D mesh over ALL processes' devices — the
     same `shard_map` programs used single-process (parallel/dist.py,
     parallel/sharded_ba.py, parallel/dist_cholesky.py) then run with their
-    `psum`s riding ICI within a slice and DCN across slices, with no code
-    changes (JAX partitions collectives by the mesh's device order);
+    `psum`s carried by NCCL — NVLink between the cards of one host, the
+    network across hosts — with no code changes (JAX partitions
+    collectives by the mesh's device order);
   * configuration comes from explicit args, the standard cluster env
-    (TPU pods auto-detect), or SLAMPP_* variables for manual bring-up.
+    (JAX's cluster auto-detection), or SLAMPP_* variables for manual
+    bring-up.
 
 CLI: slam_plus_plus_tpu.app.main --dist-coord host:port --dist-nprocs N
 --dist-procid I (see app/main.py), or env SLAMPP_COORD/SLAMPP_NPROCS/
@@ -37,7 +39,7 @@ def initialize(coordinator: Optional[str] = None,
     """Idempotently initialize jax.distributed.
 
     Falls back to env (SLAMPP_COORD, SLAMPP_NPROCS, SLAMPP_PROC_ID), then
-    to JAX's own cluster auto-detection (TPU pod metadata).  Returns True
+    to JAX's own cluster auto-detection (e.g. SLURM).  Returns True
     if a multi-process runtime was initialized, False for single-process
     operation (no coordinator configured anywhere).
     """
@@ -53,9 +55,9 @@ def initialize(coordinator: Optional[str] = None,
         process_id = int(os.environ["SLAMPP_PROC_ID"])
 
     if coordinator is None and num_processes is None:
-        # TPU-pod auto-detection: initialize() with no args succeeds on a
-        # pod slice runtime, raises elsewhere — treat failure as
-        # single-process.
+        # cluster auto-detection: initialize() with no args succeeds
+        # under a cluster manager JAX recognises, raises elsewhere —
+        # treat failure as single-process.
         try:
             jax.distributed.initialize()
             _initialized = True
@@ -77,7 +79,8 @@ def is_multiprocess() -> bool:
 
 def global_mesh(axis: str = "edges"):
     """1-D mesh over every device of every process (the sharded programs'
-    collectives then span hosts: ICI inside a slice, DCN across)."""
+    collectives then span hosts: NVLink inside one, the network
+    across)."""
     import jax
     from jax.sharding import Mesh
     return Mesh(np.asarray(jax.devices()), (axis,))

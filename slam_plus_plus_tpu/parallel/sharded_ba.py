@@ -14,7 +14,8 @@ landmark-side array an even leading-axis shard, each device's slice is
 exactly ``G = Nl_pad / n`` whole landmark groups, and all landmark-side
 reductions stay device-local reshapes — there is NO landmark-axis collective
 at all.  Per solve, the only collectives are psum(pp), psum(eta_p),
-psum(SC [nred^2]) and psum(chi2), all riding ICI.
+psum(SC [nred^2]) and psum(chi2), which XLA hands to NCCL (the cards of
+one host are joined all to all by NVLink).
 
 Reference analogue: none — the reference is single-process
 (LinearSolver_Schur.h:1744 runs its SpDGEMMs on one GPU); this is the
@@ -199,54 +200,6 @@ class ShardedBAOptimizer:
                       asm.Np * Bp) * itemsize                 # SC, chol, pp
         return dict(sharded=int(sharded), replicated=int(replicated),
                     total=int(sharded + replicated))
-
-    def projected_scaling(self, n_devices=None, flops_per_device=2.0e14,
-                          ici_bytes_per_s=4.5e10, bf16=False):
-        """Analytic per-step time/scaling model for the sharded solve.
-
-        The CPU-mesh dryrun validates CORRECTNESS; real multi-chip timing
-        needs hardware we do not have, so this is the committed projection
-        the scaling tests check for internal consistency: per-device
-        compute = (edge kernels + panel products + SC GEMM)/n, collectives
-        = psum(pp + eta_p + SC) at ring-allreduce cost 2(n-1)/n * bytes,
-        plus the replicated reduced Cholesky.  Returns a dict per device
-        count with est. step ms and parallel efficiency vs 1 device.
-
-        Defaults are v5e-class: ~200 TFLOP/s bf16 MXU (halve for f32) and
-        ~45 GB/s effective per-link ICI all-reduce bandwidth."""
-        asm = self.asm
-        Bp, Bl, Np, Nl = asm.Bp, asm.Bl, asm.Np, asm.Nl
-        nred = self.nred
-        if not bf16:
-            flops_per_device = flops_per_device / 2
-        E = sum(self.G * self.n_shards * e["M"] for e in self.plan_data)
-        # FLOPs: per-edge jacobian+Hessian kernels (~40 ops/entry est.),
-        # panel build einsums, SC GEMM, landmark backsub
-        f_kernel = E * (Bp + Bl) ** 2 * 40
-        f_panels = E * Np * Bp * Bl * 2
-        f_sc = 2 * (Nl * Bl) * nred * nred
-        f_bottom = nred ** 3 / 3
-        itemsize = 4
-        psum_bytes = (nred * nred + asm.Kpp * Bp * Bp + Np * Bp) * itemsize
-        out = {}
-        counts = n_devices if n_devices is not None else [1, 2, 4, 8, 16]
-        for n in np.atleast_1d(counts):
-            n = int(n)
-            t_comp = (f_kernel + f_panels + f_sc) / n / flops_per_device
-            t_bottom = f_bottom / flops_per_device   # replicated
-            t_coll = (0.0 if n == 1 else
-                      2 * (n - 1) / n * psum_bytes / ici_bytes_per_s)
-            t = t_comp + t_bottom + t_coll
-            out[n] = dict(step_ms=round(t * 1e3, 6),
-                          compute_ms=round((t_comp + t_bottom) * 1e3, 6),
-                          collective_ms=round(t_coll * 1e3, 6), _t=t)
-        t1 = out.get(1, None)
-        if t1:
-            for n, d in out.items():
-                d["efficiency"] = round(t1["_t"] / (n * d["_t"]), 3)
-        for d in out.values():
-            del d["_t"]
-        return out
 
     # ---- the fused distributed step ------------------------------------
 

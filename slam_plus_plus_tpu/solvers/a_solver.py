@@ -8,7 +8,7 @@ the least-squares system each iteration.  Unlike the lambda family it has
 no robust-weighting hook (robust weights route through the lambda reduction
 plans only) — replicated here.
 
-TPU-native split: the per-edge Jacobian/residual batches come from the same
+Device/host split: the per-edge Jacobian/residual batches come from the same
 jax kernels as the lambda path (vmap + jacfwd through the ⊞ retraction);
 the rectangular assembly and the least-squares solve are host-side
 (scipy LSQR) — this solver exists for verification and pedagogy, exactly as

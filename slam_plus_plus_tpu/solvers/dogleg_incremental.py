@@ -16,7 +16,7 @@ incremental machinery is:
     re-eliminated into SC;
   * dogleg trust region control identical to the batch solver.
 
-TPU-first redesign (not a port): the maintained state is a set of device
+Accelerator-first redesign (not a port): the maintained state is a set of device
 arrays — planar lambda pieces (pp [Kpp], u [Kpl], ll [Nl], eta_p, eta_l),
 the DENSE reduced camera system SC [Np*Bp]^2, and per-edge linearization
 snapshots (the endpoint states at each edge's last refresh).  One batched
@@ -24,9 +24,9 @@ dispatch per (edge type, size bucket) refreshes all dirty edges: it
 evaluates the edge kernel at BOTH the snapshot and the current states and
 scatters the difference into the maintained arrays (the snapshot makes the
 delta exact with no per-edge contribution cache).  Dirty landmarks are
-re-eliminated by building old/new U,W panels (scatter + two MXU GEMMs) and
+re-eliminated by building old/new U,W panels (scatter + two GEMMs) and
 adding the panel-product difference to SC.  The dense SC refactors on the
-MXU every iteration — at reduced-camera sizes this is microseconds, so
+device every iteration — at reduced-camera sizes this is microseconds, so
 unlike the reference we never maintain a FACTOR incrementally, only the SC
 matrix (the expensive object).  Compiled programs: one refresh per
 (edge type, bucket), one panel-delta per bucket, one solve, one update —

@@ -17,7 +17,7 @@ Its semantics, replicated here exactly:
     NonlinearSolver_FastL.h:2367); otherwise dx is discarded and the frozen
     linearization survives (break-before-push).
 
-TPU-first redesign of the mechanism (not a port of R11 refactorization):
+Accelerator-first redesign of the mechanism (not a port of R11 refactorization):
 lambda lives as the level-0 block array of the nested MIS-Schur plan
 (linalg/block_cholesky.py) over the final replay pattern; an omega step is a
 scatter of the new edges' Hessian blocks into lambda followed by a
@@ -92,7 +92,7 @@ class FastLSolver:
         asm = self.asm
         assert asm.Nl == 0, "mixed-class assembler still split a class"
 
-        # f32 note (measured, trees10k incr on TPU): periodic full factor
+        # f32 note (measured, trees10k incr in f32): periodic full factor
         # redescents do NOT tighten the final chi2 — the 1.09x gap vs the
         # f64 trajectory comes from push decisions flipping under f32
         # rounding (trajectory variance), not from accumulated factor
@@ -324,12 +324,11 @@ class FastLSolver:
                 return H0, eta0, scaled
 
             def omega_pinned(*args, omega=omega):
-                # full-f32 pin: TPU default f32 matmuls round the jacfwd
-                # products through bf16; on the STANDALONE omega path
-                # (multi-chunk pendings — loop-heavy graphs) the corrupted
-                # contributions accumulated into lambda and diverged the
-                # city10k on-chip replay to 1e16 chi2.  The fused1 path
-                # was already pinned; CPU-f32 replays converge fine.
+                # full-f32 pin: reduced-precision f32 matmuls corrupt the
+                # jacfwd products; on the STANDALONE omega path (multi-chunk
+                # pendings — loop-heavy graphs) the corrupted contributions
+                # accumulated into lambda and diverged a city10k replay to
+                # 1e16 chi2.  The fused1 path is pinned too.
                 with jax.default_matmul_precision("highest"):
                     return omega(*args)
 

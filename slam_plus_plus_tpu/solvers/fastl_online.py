@@ -7,7 +7,7 @@ include/slam/OrderingMagic.h:291) and R grows without knowing the future.
 The replay FastLSolver (solvers/fastl.py) instead builds its symbolic plan
 from the final pattern — benchmark-grade but not usable live.
 
-TPU-first streaming design (static shapes + low-rank fringe + amortized
+Accelerator-first streaming design (static shapes + low-rank fringe + amortized
 growth; SURVEY §7 "incremental updates without recompilation"):
 
   * VERTEX CAPACITY DOUBLING: the engine is built over a PREDICTED padded

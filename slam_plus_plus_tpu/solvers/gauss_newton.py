@@ -12,7 +12,7 @@ semantics replicated exactly for golden-value parity:
         x <- x ⊞ dx
 
 The linear backend is chosen per structure: Schur elimination whenever an
-eliminated (landmark) class exists, a dense MXU Cholesky for small primary
+eliminated (landmark) class exists, a dense Cholesky for small primary
 systems, and the nested MIS-Schur sparse block Cholesky
 (linalg/block_cholesky.py) for large pose graphs; linear_solver="scipy"
 forces the host oracle.
@@ -29,20 +29,11 @@ import jax
 import jax.numpy as jnp
 
 from slam_plus_plus_tpu.assembly.assembler import Assembler
-from slam_plus_plus_tpu.config import SolverConfig
+from slam_plus_plus_tpu.config import SolverConfig, device_policy
 from slam_plus_plus_tpu.graph.system import GraphSystem
 from slam_plus_plus_tpu.linalg.dense import solve_dense_spd
 from slam_plus_plus_tpu.linalg.host_solver import HostSparseSolver
 from slam_plus_plus_tpu.linalg.schur import SchurSolver
-
-def _dense_limit():
-    """Scalar dims below which the direct dense MXU path is used: the TPU
-    factors a 20k-dim dense system in ~ms; host sparse fallback only pays
-    beyond that."""
-    import jax
-    return 20000 if jax.default_backend() == "tpu" else 6000
-
-
 
 
 class GaussNewtonSolver:
@@ -74,14 +65,15 @@ class GaussNewtonSolver:
         self._dense_direct = (not use_schur and
                               (self.config.linear_solver == "dense" or
                                (self.config.linear_solver == "auto" and
-                                not f32 and n_scalar <= _dense_limit())))
+                                not f32 and
+                                n_scalar <= device_policy().dense_limit)))
         if self._dense_direct:
             # rows/cols stay host-side numpy: static scatter structure.
-            # full-f32 precision: the TPU default rounds the blocked
-            # Cholesky/TRSM through bf16 passes — a 10k-dim dense factor
-            # then produces a divergent step (observed: manhattan3500 batch
-            # chi2 exploding after one iteration on chip, while the sparse
-            # path with pinned precision converges).
+            # full-f32 precision: a reduced-precision blocked Cholesky/TRSM
+            # makes a 10k-dim dense factor produce a divergent step
+            # (observed: manhattan3500 batch chi2 exploding after one
+            # iteration, while the sparse path with pinned precision
+            # converges).
             def dense_solve(sys_):
                 with jax.default_matmul_precision("highest"):
                     return solve_dense_spd(asm.pp_rows, asm.pp_cols,
@@ -102,7 +94,7 @@ class GaussNewtonSolver:
             # with the level count — at 17 levels (w100K scale) the f32
             # factor left O(1) error in a subspace and plain refinement
             # diverged.  Capping at 8 levels raises the dense bottom only
-            # modestly (w100K: 1470 -> 2966 blocks = one ~9k-dim MXU
+            # modestly (w100K: 1470 -> 2966 blocks = one ~9k-dim dense
             # Cholesky, ~10 ms class) while removing 40% of the scatter
             # products and halving the error depth; f64 keeps full depth
             # (deep elimination is cheaper than a large host/dense bottom

@@ -10,7 +10,7 @@ replicated: nonlinear step = Optimize(10, 20) (reference
 src/slam_app/Main.cpp:704-705); no final batch optimization in incremental
 mode (reference include/slam_app/Main.h:1463-1467).
 
-TPU-first design: instead of growing matrices per step (the reference's
+Accelerator-first design: instead of growing matrices per step (the reference's
 Extend_Lambda), the FULL dataset structure is laid out once and replayed with
 *active-count masking* — inactive edges carry zero information, inactive
 vertices unit pivots, and the counts are traced scalars.  The entire
@@ -34,16 +34,12 @@ import jax
 import jax.numpy as jnp
 
 from slam_plus_plus_tpu.assembly.assembler import Assembler
-from slam_plus_plus_tpu.config import SolverConfig
+from slam_plus_plus_tpu.config import SolverConfig, device_policy
 from slam_plus_plus_tpu.graph.system import GraphSystem
 from slam_plus_plus_tpu.linalg.dense import solve_dense_spd
 from slam_plus_plus_tpu.linalg.host_solver import HostSparseSolver
 from slam_plus_plus_tpu.linalg.schur import SchurSolver
 from slam_plus_plus_tpu.models.types import EDGE_TYPES
-
-def _dense_limit():
-    import jax
-    return 20000 if jax.default_backend() == "tpu" else 6000
 
 
 class IncrementalSolver:
@@ -68,7 +64,7 @@ class IncrementalSolver:
         new vertex, one iteration, always push (the reference's
         __NONLINEAR_SOLVER_FAST_L_BACKSUBSTITUTE_EACH_1 behavior).  Where
         FastL approximates by reusing stale linearization in R and only
-        omega-updating (RSS13's O(affected) trick for CPUs), the TPU engine
+        omega-updating (RSS13's O(affected) trick for CPUs), the device engine
         fully relinearizes each step — one batched device launch — which
         converges at least as well (manhattan: 91.08 vs FastL's 93.97)."""
         self.system = system
@@ -116,7 +112,8 @@ class IncrementalSolver:
         use_schur = asm.Nl > 0 and asm.Kpl > 0
         self._schur = SchurSolver(asm) if use_schur else None
         self._host = HostSparseSolver() if not use_schur else None
-        self._dense_direct = (not use_schur and asm.Np * asm.Bp <= _dense_limit())
+        self._dense_direct = (not use_schur and
+                              asm.Np * asm.Bp <= device_policy().dense_limit)
         self._sparse_chol = None
         self._fused_lambda = None
         if not use_schur and not self._dense_direct:
@@ -149,8 +146,7 @@ class IncrementalSolver:
         self._activate_fns: Dict[Tuple[str, int], callable] = {}
 
         # fastl mode: ONE fused jitted step (assemble+solve+update), no host
-        # synchronization — steps stream asynchronously to the device, which
-        # matters enormously when dispatch latency is high (remote TPU)
+        # synchronization — steps stream asynchronously to the device
         self._fused_step = None
         schur_fusable = (self._schur is not None and
                          not getattr(self._schur, "sparse_reduced", False))

@@ -5,7 +5,7 @@ The CPU deployment path of the incremental solvers: the whole replay (omega
 scatter, delta-propagated MIS-level refactorization, solve, push decisions,
 activations) runs as one C++ call over the SAME symbolic plan the JAX
 engine uses — removing the XLA per-op dispatch + jax tracing tax that
-dominates small-graph CPU replays.  The TPU keeps the fused-scan engine.
+dominates small-graph CPU replays.  The GPU keeps the fused-scan engine.
 
 Supported: SE(2) pose graphs + 2D range-bearing landmark graphs, f64,
 dirty-refresh, no in-loop marginals.  Everything else falls back to JAX.
@@ -106,10 +106,12 @@ class NativeReplay:
 
     @staticmethod
     def supported(solver) -> bool:
-        import jax
+        import numpy as _np
+        from slam_plus_plus_tpu.config import device_policy
         if os.environ.get("SLAMPP_NATIVE", "auto") in ("0", "off"):
             return False
-        if jax.default_backend() != "cpu" or not jax.config.jax_enable_x64:
+        policy = device_policy()
+        if policy.platform != "cpu" or policy.dtype != _np.float64:
             return False
         if solver.refresh != "dirty" or solver.full_refresh_interval:
             return False

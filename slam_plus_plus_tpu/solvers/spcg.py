@@ -3,7 +3,7 @@
 Reference analogue: CNonlinearSolver_SPCG (reference
 include/slam/NonlinearSolver_SPCG.h:19,61) — research solver running
 conjugate gradients over the normal equations with a SUBGRAPH
-preconditioner.  TPU formulation: matrix-free CG over the planar block SpMV
+preconditioner.  Device formulation: matrix-free CG over the planar block SpMV
 (one batched GEMM sweep per iteration), preconditioned by
 
   * "subgraph" (default for pose graphs, the reference's design): a

@@ -2,8 +2,8 @@
 
 Reference analogue: the FLOP-counting instrumented scalar + CSparse clone
 (reference include/sparse_flops/Instrument.h:40,131, cts.hpp) used to report
-exact operation counts.  On TPU the compiled program's cost is known to XLA,
-so instrumentation is analytic: per-stage FLOP formulas from the static
+exact operation counts.  On the device the compiled program's cost is known
+to XLA, so instrumentation is analytic: per-stage FLOP formulas from the static
 problem structure, plus XLA's own cost analysis of the jitted computations
 when available.
 """

@@ -2,7 +2,7 @@
 
 Reference analogue: CProcessMemInfo (reference include/slam/MemUsage.h:54)
 — current/peak working set queries printed in verbose mode — extended with
-the TPU-relevant half: per-device HBM usage via jax's memory_stats().
+the device half: per-device memory usage via jax's memory_stats().
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ via parallel/multihost.py), builds the GLOBAL 2-device mesh, and runs one
 distributed assembly + solve step; process 0 checks the result against a
 single-process oracle.  This validates the multi-process wiring the
 reference never had (SURVEY §2.3 P6) — on real hardware the same code runs
-one process per TPU host with collectives over ICI/DCN.
+one process per GPU host with NCCL collectives (NVLink inside a host).
 """
 
 import os

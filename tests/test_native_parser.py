@@ -8,8 +8,15 @@ from slam_plus_plus_tpu.io import datasets as D
 from slam_plus_plus_tpu.io.native_parser import ensure_lib, parse_g2o_fast
 from slam_plus_plus_tpu.io.parser import parse_g2o
 
-pytestmark = pytest.mark.skipif(ensure_lib() is None,
-                                reason="native lib unavailable")
+
+
+@pytest.fixture
+def native_lib():
+    """The native reader, or a skip: decided here, never at import time."""
+    lib = ensure_lib()
+    if lib is None:
+        pytest.skip("native lib unavailable")
+    return lib
 
 
 def _same(s1, s2):
@@ -29,7 +36,7 @@ def _same(s1, s2):
 
 
 @pytest.mark.parametrize("family", ["man", "lm", "ba", "sphere", "rocv"])
-def test_native_matches_python(tmp_path, family):
+def test_native_matches_python(tmp_path, family, native_lib):
     if family == "man":
         poses, edges = D.make_manhattan_2d(n_poses=120, seed=50)
         p = str(tmp_path / "f.txt")
@@ -52,3 +59,31 @@ def test_native_matches_python(tmp_path, family):
         D.write_g2o_rocv(p, tx, traj, ranges, dt)
 
     _same(parse_g2o(p), parse_g2o_fast(p))
+
+
+def test_reader_builds_only_its_own_library(monkeypatch, tmp_path):
+    """Building the reader must not need the embedding library's
+    python3-config: make is asked for libspp_native.so alone."""
+    from slam_plus_plus_tpu.io import native_parser as NP
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        raise OSError("no make here")
+
+    monkeypatch.setattr(NP, "_lib", None)
+    monkeypatch.setattr(NP, "_LIB_PATH", str(tmp_path / "missing.so"))
+    monkeypatch.setattr(NP.subprocess, "run", fake_run)
+    assert NP.ensure_lib() is None
+    assert calls == [["make", "-C", NP._NATIVE_DIR, "libspp_native.so"]]
+
+
+def test_cli_verbose_names_parser(tmp_path, capsys, monkeypatch, native_lib):
+    from slam_plus_plus_tpu.app.main import main
+    from slam_plus_plus_tpu.utils import cache
+    monkeypatch.setattr(cache, "enable_compilation_cache", lambda: None)
+    poses, edges = D.make_manhattan_2d(n_poses=40, seed=2)
+    p = str(tmp_path / "m.g2o")
+    D.write_g2o_2d(p, edges, poses)
+    assert main(["-i", p, "-po", "-v", "-nb", "-dx", "", "-mfnsi", "1"]) == 0
+    assert "parser: native" in capsys.readouterr().out

@@ -166,3 +166,34 @@ def test_sparse_reduced_clique_fast_path(tmp_path):
                        atol=1e-8 * scale)
     assert np.allclose(np.asarray(dx_l1), np.asarray(dx_l2),
                        atol=1e-6 * max(float(np.abs(np.asarray(dx_l2)).max()), 1e-9))
+
+
+def test_uniform_panels_match_segment_sum(tmp_path):
+    """The one-hot einsum panels Ut and Wt equal a plain NumPy segment-sum
+    construction of U (the camera-landmark blocks) and U C^-1."""
+    cams, pts, obs = datasets.make_ba_scene(n_cams=7, n_points=90, seed=12)
+    p = str(tmp_path / "ba.txt")
+    datasets.write_g2o_ba(p, cams, pts, obs)
+    system = parse_g2o(p)
+    asm = Assembler(system)
+    bs = asm.assemble(asm.snapshot_states(system))
+    from slam_plus_plus_tpu.solvers.lm import damp_system
+    bs = damp_system(bs, float(bs.max_hdiag) * 1e-3, asm.pp_diag_ids_dev)
+    sch = SchurSolver(asm)
+    assert sch.panel_mode == "uniform"
+    _c_inv, Ut, Wt = sch._uniform_panels(bs)
+
+    Np, Bp, Nl, Bl = asm.Np, asm.Bp, asm.Nl, asm.Bl
+    blocks = np.asarray(bs.pl_blocks).reshape(-1, Bp, Bl)
+    U = np.zeros((Np, Nl, Bp, Bl))
+    np.add.at(U, (asm.pl_rows, asm.pl_cols), blocks[:len(asm.pl_rows)])
+    U = U.transpose(0, 2, 1, 3).reshape(Np * Bp, Nl * Bl)
+    C = np.asarray(bs.ll_blocks).reshape(Nl, Bl, Bl)
+    cinv = np.zeros((Nl * Bl, Nl * Bl))
+    for li in range(Nl):
+        cinv[li * Bl:(li + 1) * Bl, li * Bl:(li + 1) * Bl] = \
+            np.linalg.inv(C[li])
+    W = U @ cinv
+    scale = np.abs(U).max()
+    assert np.abs(np.asarray(Ut) - U.T).max() < 1e-9 * scale
+    assert np.abs(np.asarray(Wt) - W.T).max() < 1e-9 * np.abs(W).max()
